@@ -1,15 +1,16 @@
-// cfs_native — native host-side runtime for cfs_spmv_tpu.
+// cfs_native — native host-side runtime for cfs_spmv.
 //
-// TPU-native counterpart of the reference's C++ runtime layer
-// (athelaf/cfs-spmv is C++ end to end): the two host-side hot loops that
-// stay scalar — MatrixMarket body tokenization (ref src/mmf.cpp:6-44,
-// DoRead/split per line) and the greedy chunk/window packing of the BELL2
-// planner (the analog of the per-thread CSR splitting + windowing in
-// csr_matrix.tpp:1204-1348) — implemented as a small C ABI shared library
-// loaded via ctypes. Everything vectorizable lives in NumPy; only the
-// inherently sequential scans live here.
+// The host-side scans that stay scalar in NumPy terms, implemented as a
+// small C ABI shared library loaded via ctypes: MatrixMarket body
+// tokenization (ref src/mmf.cpp:6-44), the symmetric triangle split with
+// dense-diagonal (SDIA) fill, its distributed per-shard variant, and the
+// symmetrized adjacency used by RCM. Every routine has a NumPy fallback
+// in its caller that produces bit-identical output.
 //
-// Build: g++ -O3 -march=native -shared -fPIC cfs_native.cpp -o libcfs_native.so
+// SDIA value planes are (D, n): plane j holds diagonal offsets[j] at the
+// diagonal's row index, so slot (j, g) = j * n + g.
+//
+// Build: g++ -O3 -std=c++17 -shared -fPIC cfs_native.cpp -o libcfs_native.so
 
 #include <cstdint>
 #include <cstdlib>
@@ -69,546 +70,7 @@ int64_t cfs_parse_mmf_body(const char *buf, int64_t len, int64_t nnz,
 }
 
 // ---------------------------------------------------------------------------
-// Greedy BELL2 chunk packing (formats/bell2.py:pack_chunks inner loop).
-//
-// Units are scanned in key order; a unit joins the current chunk while the
-// chunk has a free subrow (< sublanes) and the union of x-windows stays
-// within max_windows slots. Window ids within a chunk are assigned in
-// first-seen order (must match the Python fallback exactly so plans are
-// reproducible across backends).
-//
-// Inputs (all preallocated by the caller):
-//   uw_start/uw_end : per-unit [start, end) into the distinct
-//                     (unit, window-need) list      (n_units, n_units)
-//   uw_seg          : segment id per (unit, window) (n_uw)
-//   unit_tile       : owning row tile per unit      (n_units)
-// Outputs:
-//   chunk_of_unit, subrow_of_unit : per-unit placement (n_units)
-//   uw_slot                       : window slot per (unit, window) (n_uw)
-//   chunk_tile     : owning tile per chunk          (cap n_units)
-//   windows        : (cap n_units, sublanes) window table, zero-filled
-//   nwin           : windows used per chunk         (cap n_units)
-// Returns the number of chunks, or -1 on invariant violation.
-int64_t cfs_pack_units(const int64_t *uw_start, const int64_t *uw_end,
-                       const int64_t *uw_seg, const int64_t *unit_tile,
-                       int64_t n_units, int64_t sublanes,
-                       int64_t max_windows, int64_t *chunk_of_unit,
-                       int64_t *subrow_of_unit, int64_t *uw_slot,
-                       int64_t *chunk_tile, int32_t *windows,
-                       int32_t *nwin) {
-  if (max_windows > 8 || sublanes > 8) return -1;
-  int64_t n_chunks = 0;
-  int64_t cur_tile = -2;  // forces a new chunk for the first unit
-  int64_t cur_sub = sublanes;
-  int64_t winmap[8];  // segment id per occupied slot
-  int64_t nmap = 0;
-
-  for (int64_t k = 0; k < n_units; ++k) {
-    const int64_t s0 = uw_start[k], s1 = uw_end[k];
-    // count windows of this unit not already in the chunk (segs within a
-    // unit may repeat across its (unit, seg) records only as distinct
-    // entries; dedup against winmap AND among themselves)
-    int64_t fresh = 0;
-    for (int64_t i = s0; i < s1; ++i) {
-      const int64_t sg = uw_seg[i];
-      bool seen = false;
-      for (int64_t w = 0; w < nmap; ++w)
-        if (winmap[w] == sg) { seen = true; break; }
-      if (!seen) {
-        for (int64_t j = s0; j < i; ++j)
-          if (uw_seg[j] == sg) { seen = true; break; }
-      }
-      if (!seen) ++fresh;
-    }
-    if (unit_tile[k] != cur_tile || cur_sub >= sublanes ||
-        nmap + fresh > max_windows) {
-      cur_tile = unit_tile[k];
-      cur_sub = 0;
-      nmap = 0;
-      chunk_tile[n_chunks] = cur_tile;
-      ++n_chunks;
-    }
-    const int64_t ci = n_chunks - 1;
-    for (int64_t i = s0; i < s1; ++i) {
-      const int64_t sg = uw_seg[i];
-      int64_t slot = -1;
-      for (int64_t w = 0; w < nmap; ++w)
-        if (winmap[w] == sg) { slot = w; break; }
-      if (slot < 0) {
-        if (nmap >= max_windows) return -1;
-        slot = nmap;
-        winmap[nmap] = sg;
-        windows[ci * sublanes + nmap] = (int32_t)sg;
-        ++nmap;
-      }
-      uw_slot[i] = slot;
-    }
-    nwin[ci] = (int32_t)nmap;
-    chunk_of_unit[k] = ci;
-    subrow_of_unit[k] = cur_sub;
-    ++cur_sub;
-  }
-  return n_chunks;
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// Conflict-aware slot packing for one-sided BELL2 streams.
-//
-// Unit-based packing (cfs_pack_units) keeps one (row-tile, column-segment)
-// unit per subrow, which leaves subrows mostly empty on scattered/block
-// structure (2-4x padding). This packer places ENTRIES directly: a subrow
-// may mix segments as long as (a) each row lane holds at most one value,
-// (b) each gather lane (lane_c) position carries one window id — entries
-// sharing a gather lane must share the segment (then the r2 overwrite is
-// idempotent), and (c) the chunk's distinct segments fit max_windows.
-// First-fit over a ring of the most recent `ring` open chunks per tile.
-//
-// `group` packs SUPERCHUNKS of group*8 subrows sharing one <=8-window
-// table: the kernel then stacks the x windows once per run of `group`
-// chunks instead of per chunk. e_chunk/e_sub index the SUPERCHUNK (sub
-// in [0, group*8)); chunk_tile/windows/nwin are per superchunk; the
-// Python caller expands them to chunk granularity. group == 1
-// reproduces the original layout bit-for-bit. (Measured on v5e: the
-// stacks are NOT the dominant cost and grouping costs fill — group 1 is
-// the default; the machinery remains for structures where it wins.)
-//
-// `contig` constrains a chunk's windows to a CONTIGUOUS segment range
-// [w0, w0+max_windows): entries arrive seg-ascending, so w0 is the
-// first entry's segment and the windows table holds w0..w0+nwin-1. The
-// kernel can then load the whole x-window stack as ONE dynamic (8,128)
-// slab instead of 8 separate row loads — the largest reducible per-chunk
-// cost (~2 cycles/chunk measured). Costs nothing on seg-sorted arrival
-// orders (chunks naturally take consecutive segments).
-//
-// Entries must arrive sorted by (tile, seg, lane_c). Returns the
-// superchunk count. Templated over the entry index width: the int32
-// instantiation halves the stream traffic of the planner's hottest
-// pass (any matrix with < 2^31 rows/cols/chunks fits).
-// `cap` bounds the per-chunk output arrays (chunk_tile/windows/nwin):
-// returns -2 when the pack would exceed it, so the caller can retry
-// with a larger capacity instead of always allocating n-chunk arrays
-// (3.5 GB of mostly-padding at 80M entries).
-template <typename I>
-static int64_t pack_slots_impl(const I *tile, const I *lane_r,
-                               const I *seg, const I *lane_c,
-                               int64_t n, int64_t max_windows, int64_t ring,
-                               int64_t group, int64_t contig, int64_t rot,
-                               int64_t cap, I *e_chunk, I *e_sub, I *e_r2,
-                               I *e_rc, int64_t *chunk_tile,
-                               int32_t *windows, int32_t *nwin) {
-  // contig window ranges may span up to 32 segments (r2 is 5 bits in the
-  // packed field); free window tables stay capped at the 8 vreg sublanes.
-  if (max_windows > (contig ? 32 : 8) || ring < 1 || ring > 256)
-    return -1;
-  if (group < 1 || group > 8) return -1;
-  if (rot != 1 && rot != 2 && rot != 4) return -1;
-  const int64_t stride = 128 / rot;  // lane-coset stride
-  const int64_t nsub = 8 * group;
-  struct Chunk {
-    int64_t id;
-    int64_t t;
-    int64_t nw;
-    int64_t wseg[8];
-    uint64_t used_r[64][2];   // per-subrow row-lane occupancy
-    int32_t cseg[64][128];    // per-subrow gather-lane -> seg (-1 free)
-  };
-  Chunk *open = new Chunk[ring];
-  int64_t n_open = 0, head = 0;  // ring of open chunks, oldest first
-  int64_t n_chunks = 0;
-  int64_t cur_tile = -1;
-
-  for (int64_t i = 0; i < n; ++i) {
-    if (tile[i] != cur_tile) {
-      cur_tile = tile[i];
-      n_open = 0;
-      head = 0;
-    }
-    const int64_t lr = lane_r[i], sg = seg[i], lc = lane_c[i];
-    bool placed = false;
-    for (int64_t o = 0; o < n_open && !placed; ++o) {
-      Chunk &ch = open[(head + o) % ring];
-      // window for sg: contiguous-range slot, or existing/free slot
-      int64_t w = -1;
-      bool new_w = false;
-      if (contig) {
-        w = sg - ch.wseg[0];  // w0 = first entry's segment (ascending)
-        if (w < 0 || w >= max_windows) continue;
-        new_w = (w >= ch.nw);
-      } else {
-        for (int64_t j = 0; j < ch.nw; ++j)
-          if (ch.wseg[j] == sg) { w = j; break; }
-        new_w = (w < 0);
-        if (new_w) {
-          if (ch.nw >= max_windows) continue;
-          w = ch.nw;
-        }
-      }
-      for (int64_t s = 0; s < nsub && !placed; ++s) {
-        const int32_t have = ch.cseg[s][lc];
-        if (have >= 0 && have != (int32_t)sg) continue;
-        // lane rotation: an entry of row lane lr may occupy any lane of
-        // its coset {lr, lr+stride, ...}; the kernel rolls each rotation
-        // group's contribution back before the row update
-        for (int64_t rc = 0; rc < rot; ++rc) {
-          const int64_t pl = (lr + stride * rc) & 127;
-          if (ch.used_r[s][pl >> 6] & (1ull << (pl & 63))) continue;
-          // place
-          ch.used_r[s][pl >> 6] |= 1ull << (pl & 63);
-          ch.cseg[s][lc] = (int32_t)sg;
-          if (new_w) {
-            const int64_t nw_new = contig ? w + 1 : ch.nw + 1;
-            for (int64_t j = ch.nw; j < nw_new && j < 8; ++j) {
-              ch.wseg[j] = contig ? ch.wseg[0] + j : sg;
-              windows[ch.id * 8 + j] = (int32_t)ch.wseg[j];
-            }
-            ch.nw = nw_new;
-            nwin[ch.id] = (int32_t)(ch.nw < 8 ? ch.nw : 8);
-          }
-          e_chunk[i] = ch.id;
-          e_sub[i] = s;
-          e_r2[i] = w;
-          e_rc[i] = rc;
-          placed = true;
-          break;
-        }
-      }
-    }
-    if (!placed) {
-      if (n_chunks >= cap) {
-        delete[] open;
-        return -2;  // capacity exceeded — caller retries larger
-      }
-      // open a new chunk (evict oldest if the ring is full)
-      Chunk &ch = (n_open < ring) ? open[(head + n_open++) % ring]
-                                  : open[head];
-      if (n_open == ring && &ch == &open[head]) head = (head + 1) % ring;
-      ch.id = n_chunks++;
-      ch.t = cur_tile;
-      ch.nw = 1;
-      ch.wseg[0] = sg;
-      memset(ch.used_r, 0, nsub * sizeof(ch.used_r[0]));
-      memset(ch.cseg, -1, nsub * sizeof(ch.cseg[0]));
-      ch.used_r[0][lr >> 6] |= 1ull << (lr & 63);
-      ch.cseg[0][lc] = (int32_t)sg;
-      chunk_tile[ch.id] = cur_tile;
-      windows[ch.id * 8] = (int32_t)sg;
-      nwin[ch.id] = 1;
-      e_chunk[i] = ch.id;
-      e_sub[i] = 0;
-      e_r2[i] = 0;
-      e_rc[i] = 0;
-    }
-  }
-  delete[] open;
-  return n_chunks;
-}
-
-// ---------------------------------------------------------------------------
-// Anchor-sweep slot packing for CONTIGUOUS-window one-sided streams.
-//
-// The first-fit packer above opens a chunk at the first entry that fits no
-// open chunk, anchoring its window at that entry's segment. On wide-band
-// scattered structure (window span > max_windows segments) the staggered
-// anchors this produces strand capacity: chunks anchored low cannot reach
-// the tile's tail segments, so the tail forces extra chunks while low
-// chunks sit with free slots (measured round 4: +10.5% chunks over the
-// lane-conflict floor on the random-band shape).
-//
-// The sweep packs each tile to the floor of the relaxed problem: anchor
-// every successive chunk at the MINIMUM unassigned segment (forced — a
-// lower entry could never join a later, higher-anchored chunk), then give
-// every row lane its MAXIMAL prefix of remaining entries that fits the
-// window and the 8-subrow capacity. An exchange argument makes this
-// optimal for the per-lane capacity relaxation; gather-lane (q) conflicts
-// are handled by stopping the lane for the current chunk (its entry
-// re-anchors or joins the next chunk), which keeps each lane's assignment
-// a prefix and costs chunks only on the rare unresolvable conflict.
-// Measured on the random-band proxy: 1722 -> 1559 chunks at deep-16
-// against a 1558 lane floor.
-//
-// Entries must arrive sorted by (tile, seg, lane_c) — the same contract
-// as pack_slots with contig=1; outputs are identical in shape/meaning
-// (e_rc is always 0: lane rotation was pruned round 4).
-//
-// Two phases per tile. Phase 1 runs the RELAXED sweep (per-lane quota 8
-// per chunk, window feasibility, gather conflicts ignored) to plan the
-// anchor list — provably minimal for the relaxation. Phase 2 opens ALL
-// planned chunks at once and first-fits every entry across the chunks
-// whose window contains its segment (ascending anchor order), so a
-// gather-lane conflict in one chunk retries the others — the property
-// that made the old ring packer's q-conflict handling work. Entries that
-// fit no planned chunk open fallback chunks anchored at their own
-// segment (rare; both lists stay anchor-sorted because segments ascend).
-struct SweepChunk {
-  int64_t id;
-  int64_t anchor;
-  int64_t nw;
-  uint64_t used_sub[8][2];  // per-subrow row-lane occupancy
-  int32_t cseg[8][128];     // per-subrow gather-lane -> seg (-1 free)
-
-  // Reuse-first placement: prefer a subrow whose gather lane already
-  // maps to this segment (same-column entries share the slot — no new
-  // q capacity consumed), then any subrow with the gather lane free.
-  // Measured on the random band: plain first-fit leaves 182 fallback
-  // chunks, reuse-first 77 (1741 -> 1636 total).
-  inline int64_t try_place(int64_t lr, int64_t lc, int32_t sg) {
-    for (int64_t s = 0; s < 8; ++s) {
-      if (cseg[s][lc] != sg) continue;
-      if (used_sub[s][lr >> 6] & (1ull << (lr & 63))) continue;
-      used_sub[s][lr >> 6] |= 1ull << (lr & 63);
-      return s;
-    }
-    for (int64_t s = 0; s < 8; ++s) {
-      if (cseg[s][lc] >= 0) continue;
-      if (used_sub[s][lr >> 6] & (1ull << (lr & 63))) continue;
-      used_sub[s][lr >> 6] |= 1ull << (lr & 63);
-      cseg[s][lc] = sg;
-      return s;
-    }
-    return -1;
-  }
-};
-
-template <typename I>
-static int64_t pack_slots_sweep_impl(const I *tile, const I *lane_r,
-                                     const I *seg, const I *lane_c,
-                                     int64_t n, int64_t max_windows,
-                                     int64_t cap, I *e_chunk, I *e_sub,
-                                     I *e_r2, I *e_rc, int64_t *chunk_tile,
-                                     int32_t *windows, int32_t *nwin) {
-  if (max_windows < 1 || max_windows > 32) return -1;
-  const int64_t D = max_windows;
-  uint8_t *rdone = (uint8_t *)calloc((size_t)(n ? n : 1), 1);
-  if (!rdone) return -1;
-  int64_t anchors_cap = 64, nfall_cap = 16;
-  int64_t *anchors = (int64_t *)malloc(anchors_cap * sizeof(int64_t));
-  SweepChunk *chunks = nullptr;
-  int64_t chunks_cap = 0;
-  int64_t n_chunks = 0;
-  int8_t lane_taken[128];
-
-  int64_t i = 0;
-  while (i < n) {
-    const int64_t t = (int64_t)tile[i];
-    int64_t j = i;
-    while (j < n && (int64_t)tile[j] == t) ++j;
-
-    // phase 1: relaxed anchor plan (reuses rdone as scratch flags)
-    int64_t F = 0;
-    int64_t first = i;
-    while (first < j) {
-      const int64_t a = (int64_t)seg[first];
-      if (F >= anchors_cap) {
-        anchors_cap *= 2;
-        anchors = (int64_t *)realloc(anchors, anchors_cap * sizeof(int64_t));
-      }
-      anchors[F++] = a;
-      memset(lane_taken, 0, sizeof(lane_taken));
-      for (int64_t k = first; k < j; ++k) {
-        if ((int64_t)seg[k] - a >= D) break;  // segs ascend in the tile
-        if (rdone[k]) continue;
-        const int64_t lr = (int64_t)lane_r[k];
-        if (lane_taken[lr] >= 8) continue;
-        rdone[k] = 1;
-        ++lane_taken[lr];
-      }
-      while (first < j && rdone[first]) ++first;
-    }
-
-    // phase 2: open every planned chunk, first-fit with q-conflict
-    // retries across the eligible anchor range; fallback chunks append
-    // past the planned F (their anchors also ascend)
-    if (F + nfall_cap > chunks_cap) {
-      delete[] chunks;
-      chunks_cap = F + nfall_cap;
-      chunks = new SweepChunk[chunks_cap];
-    }
-    if (n_chunks + F > cap) {
-      free(rdone);
-      free(anchors);
-      delete[] chunks;
-      return -2;  // capacity exceeded — caller retries larger
-    }
-    for (int64_t c = 0; c < F; ++c) {
-      SweepChunk &ch = chunks[c];
-      ch.id = n_chunks + c;
-      ch.anchor = anchors[c];
-      ch.nw = 1;
-      memset(ch.used_sub, 0, sizeof(ch.used_sub));
-      memset(ch.cseg, -1, sizeof(ch.cseg));
-      chunk_tile[ch.id] = t;
-    }
-    int64_t n_open = F;      // planned + fallback chunks for this tile
-    int64_t lo = 0, hi = -1; // eligible [lo, hi] among planned chunks
-    int64_t flo = F;         // first eligible fallback chunk
-    for (int64_t k = i; k < j; ++k) {
-      const int64_t sg = (int64_t)seg[k];
-      const int64_t lr = (int64_t)lane_r[k];
-      const int64_t lc = (int64_t)lane_c[k];
-      while (lo < F && chunks[lo].anchor + D <= sg) ++lo;
-      while (hi + 1 < F && chunks[hi + 1].anchor <= sg) ++hi;
-      while (flo < n_open && chunks[flo].anchor + D <= sg) ++flo;
-      bool placed = false;
-      for (int64_t c = lo; c <= hi && !placed; ++c) {
-        SweepChunk &ch = chunks[c];
-        const int64_t s = ch.try_place(lr, lc, (int32_t)sg);
-        if (s >= 0) {
-          const int64_t w = sg - ch.anchor;
-          if (w + 1 > ch.nw) ch.nw = w + 1;
-          e_chunk[k] = (I)ch.id;
-          e_sub[k] = (I)s;
-          e_r2[k] = (I)w;
-          e_rc[k] = 0;
-          placed = true;
-        }
-      }
-      for (int64_t c = flo; c < n_open && !placed; ++c) {
-        SweepChunk &ch = chunks[c];
-        if (ch.anchor > sg) break;  // fallback anchors ascend too
-        const int64_t s = ch.try_place(lr, lc, (int32_t)sg);
-        if (s >= 0) {
-          const int64_t w = sg - ch.anchor;
-          if (w + 1 > ch.nw) ch.nw = w + 1;
-          e_chunk[k] = (I)ch.id;
-          e_sub[k] = (I)s;
-          e_r2[k] = (I)w;
-          e_rc[k] = 0;
-          placed = true;
-        }
-      }
-      if (!placed) {
-        if (n_open >= chunks_cap) {
-          chunks_cap = 2 * chunks_cap + 16;
-          SweepChunk *grown = new SweepChunk[chunks_cap];
-          memcpy(grown, chunks, n_open * sizeof(SweepChunk));
-          delete[] chunks;
-          chunks = grown;
-        }
-        if (n_chunks + n_open >= cap) {
-          free(rdone);
-          free(anchors);
-          delete[] chunks;
-          return -2;
-        }
-        SweepChunk &ch = chunks[n_open];
-        ch.id = n_chunks + n_open;
-        ch.anchor = sg;
-        ch.nw = 1;
-        memset(ch.used_sub, 0, sizeof(ch.used_sub));
-        memset(ch.cseg, -1, sizeof(ch.cseg));
-        ch.used_sub[0][lr >> 6] |= 1ull << (lr & 63);
-        ch.cseg[0][lc] = (int32_t)sg;
-        chunk_tile[ch.id] = t;
-        e_chunk[k] = (I)ch.id;
-        e_sub[k] = 0;
-        e_r2[k] = 0;
-        e_rc[k] = 0;
-        ++n_open;
-      }
-    }
-    for (int64_t c = 0; c < n_open; ++c) {
-      const SweepChunk &ch = chunks[c];
-      const int64_t nvis = ch.nw < 8 ? ch.nw : 8;
-      for (int64_t x = 0; x < nvis; ++x)
-        windows[ch.id * 8 + x] = (int32_t)(ch.anchor + x);
-      nwin[ch.id] = (int32_t)nvis;
-    }
-    n_chunks += n_open;
-    i = j;
-  }
-  free(rdone);
-  free(anchors);
-  delete[] chunks;
-  return n_chunks;
-}
-
-extern "C" {
-
-int64_t cfs_pack_slots_sweep(const int64_t *tile, const int64_t *lane_r,
-                             const int64_t *seg, const int64_t *lane_c,
-                             int64_t n, int64_t max_windows, int64_t cap,
-                             int64_t *e_chunk, int64_t *e_sub,
-                             int64_t *e_r2, int64_t *e_rc,
-                             int64_t *chunk_tile, int32_t *windows,
-                             int32_t *nwin) {
-  return pack_slots_sweep_impl(tile, lane_r, seg, lane_c, n, max_windows,
-                               cap, e_chunk, e_sub, e_r2, e_rc, chunk_tile,
-                               windows, nwin);
-}
-
-int64_t cfs_pack_slots_sweep_i32(const int32_t *tile, const int32_t *lane_r,
-                                 const int32_t *seg, const int32_t *lane_c,
-                                 int64_t n, int64_t max_windows, int64_t cap,
-                                 int32_t *e_chunk, int32_t *e_sub,
-                                 int32_t *e_r2, int32_t *e_rc,
-                                 int64_t *chunk_tile, int32_t *windows,
-                                 int32_t *nwin) {
-  return pack_slots_sweep_impl(tile, lane_r, seg, lane_c, n, max_windows,
-                               cap, e_chunk, e_sub, e_r2, e_rc, chunk_tile,
-                               windows, nwin);
-}
-
-int64_t cfs_pack_slots(const int64_t *tile, const int64_t *lane_r,
-                       const int64_t *seg, const int64_t *lane_c,
-                       int64_t n, int64_t max_windows, int64_t ring,
-                       int64_t group, int64_t contig, int64_t rot,
-                       int64_t cap, int64_t *e_chunk, int64_t *e_sub,
-                       int64_t *e_r2, int64_t *e_rc, int64_t *chunk_tile,
-                       int32_t *windows, int32_t *nwin) {
-  return pack_slots_impl(tile, lane_r, seg, lane_c, n, max_windows, ring,
-                         group, contig, rot, cap, e_chunk, e_sub, e_r2,
-                         e_rc, chunk_tile, windows, nwin);
-}
-
-int64_t cfs_pack_slots_i32(const int32_t *tile, const int32_t *lane_r,
-                           const int32_t *seg, const int32_t *lane_c,
-                           int64_t n, int64_t max_windows, int64_t ring,
-                           int64_t group, int64_t contig, int64_t rot,
-                           int64_t cap, int32_t *e_chunk, int32_t *e_sub,
-                           int32_t *e_r2, int32_t *e_rc,
-                           int64_t *chunk_tile, int32_t *windows,
-                           int32_t *nwin) {
-  return pack_slots_impl(tile, lane_r, seg, lane_c, n, max_windows, ring,
-                         group, contig, rot, cap, e_chunk, e_sub, e_r2,
-                         e_rc, chunk_tile, windows, nwin);
-}
-
-// ---------------------------------------------------------------------------
-// One-pass plan assembly (formats/bell2.py final scatters).
-//
-// Writes the (C, 8, 128) value tiles and the int16 packed index field
-// from the packer's sorted-domain outputs in two sequential passes —
-// the NumPy equivalent is ~8 full-array passes (flat-index temporaries
-// plus three fancy scatters). Two passes, not one: the r2 |= plane may
-// target a cell that a LATER entry's direct write owns (bits 0-6 hold
-// the row-entry's q, bits 7-11 the gather r2 — they coexist by the
-// packer's conflict rules), so all direct writes land first, exactly
-// like the NumPy scatter ordering.
-//   es: value element size in bytes (2 = bf16, 4 = fp32, 8 = fp64)
-void cfs_assemble_plan(const int32_t *ec, const int32_t *e_sub,
-                       const int32_t *e_r2, const int32_t *e_rc,
-                       const int32_t *lane, const int32_t *q,
-                       const char *val, int64_t es, int64_t n, int64_t rot,
-                       char *vals, int16_t *packed) {
-  const int64_t stride = 128 / rot;
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t base = ((int64_t)ec[i] * 8 + e_sub[i]) * 128;
-    const int64_t lp =
-        rot == 1 ? lane[i] : ((lane[i] + stride * e_rc[i]) & 127);
-    memcpy(vals + (base + lp) * es, val + i * es, es);
-    packed[base + lp] =
-        (int16_t)(rot == 1 ? q[i] : (q[i] | (e_rc[i] << 12)));
-  }
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t base = ((int64_t)ec[i] * 8 + e_sub[i]) * 128;
-    packed[base + q[i]] = (int16_t)(packed[base + q[i]] | (e_r2[i] << 7));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Symmetric split + SDIA extraction (formats/sbell.py build_sbell_plan).
+// Symmetric split + SDIA extraction (formats/plan.py build_symmetric_plan).
 //
 // The NumPy formulation of "separate the diagonal, select dense
 // sub-diagonals, scatter them into the SDIA planes, emit the residual
@@ -640,15 +102,13 @@ int64_t cfs_sym_off_counts(const int64_t *indptr, const int32_t *indices,
 }
 
 // Pass B: route every entry — diagonal values to diag[i], entries on
-// selected sub-diagonals (dmap[d] >= 0) into the (R, D, 8, 128) SDIA
-// value planes (optionally mirrored into plane D0 + dmap[d] scattered
-// by column), everything else appended to the residual triple arrays.
-// `data` must already be in the plan's value dtype (es bytes/elem).
-// Returns the residual count.
+// selected sub-diagonals (dmap[d] >= 0) into the (D, n) SDIA value
+// planes at (dmap[d], i), everything else appended to the residual
+// triple arrays. `data` must already be in the plan's value dtype
+// (es bytes/elem). Returns the residual count.
 int64_t cfs_sym_split_fill(const int64_t *indptr, const int32_t *indices,
                            const char *data, int64_t es, int64_t n,
-                           int64_t D, int64_t D0, const int32_t *dmap,
-                           int64_t mirror, char *vals, char *diag,
+                           const int32_t *dmap, char *vals, char *diag,
                            int32_t *rrow, int32_t *rcol, char *rval) {
   int64_t r = 0;
   for (int64_t i = 0; i < n; ++i) {
@@ -658,13 +118,7 @@ int64_t cfs_sym_split_fill(const int64_t *indptr, const int32_t *indices,
       if (d == 0) {
         memcpy(diag + i * es, data + k * es, es);
       } else if (dmap[d] >= 0) {
-        const int64_t j = dmap[d];
-        memcpy(vals + ((((i >> 10) * D + j) << 10) | (i & 1023)) * es,
-               data + k * es, es);
-        if (mirror)
-          memcpy(
-              vals + ((((c >> 10) * D + D0 + j) << 10) | (c & 1023)) * es,
-              data + k * es, es);
+        memcpy(vals + ((int64_t)dmap[d] * n + i) * es, data + k * es, es);
       } else {
         rrow[r] = (int32_t)i;
         rcol[r] = (int32_t)c;
@@ -677,51 +131,14 @@ int64_t cfs_sym_split_fill(const int64_t *indptr, const int32_t *indices,
 }
 
 // ---------------------------------------------------------------------------
-// Pairable marking (formats/sbell.py): entry i pairs when its
-// endpoints share one tiles_per_block output block, its whole diagonal
-// clears the pair threshold (off_ok[row-col], exact per-offset counts
-// from cfs_sym_off_counts), AND its per-(tile, offset) fragment count
-// clears the threshold too. Entries arrive row-major, hence
-// tile-contiguous: three mini-sweeps per tile against an n-slot
-// scratch (count candidates per offset, mark, zero) replace the keyed
-// np.unique over every candidate — which on block-scattered matrices
-// is nearly the whole stream.
-int64_t cfs_pair_mark(const int32_t *row, const int32_t *col, int64_t nr,
-                      int64_t nb128, const uint8_t *off_ok, int64_t th,
-                      int32_t *scratch, uint8_t *pairable) {
-  int64_t total = 0;
-  int64_t i = 0;
-  while (i < nr) {
-    const int32_t t = row[i] >> 7;
-    int64_t j = i;
-    while (j < nr && (row[j] >> 7) == t) ++j;
-    for (int64_t k = i; k < j; ++k) {
-      const int64_t r = row[k], c = col[k];
-      const int64_t d = r - c;
-      const uint8_t cd = (r / nb128 == c / nb128) && off_ok[d];
-      pairable[k] = cd;
-      if (cd) ++scratch[d];
-    }
-    for (int64_t k = i; k < j; ++k) {
-      const uint8_t v = pairable[k] && scratch[row[k] - col[k]] >= th;
-      pairable[k] = v;
-      total += v;
-    }
-    for (int64_t k = i; k < j; ++k) scratch[row[k] - col[k]] = 0;
-    i = j;
-  }
-  return total;
-}
-
-// ---------------------------------------------------------------------------
 // Distributed symmetric shard split (parallel/dist.py _init_symmetric).
 //
-// The per-shard decomposition of a strict-lower CSR into (dense-diagonal
-// planes, near residual triples, own-far triples, mirror triples bucketed
-// by column-owner shard) was ~15 full NumPy passes over the entry stream
-// (boolean masks, fancy gathers, per-entry dict lookups) — the dominant
-// cost of DistSpDMV planning at full scale (VERDICT r4 missing #3).
-// These two routines do it in one counting pass + one fill pass.
+// Rows are sharded in contiguous ranges [r_start[d], r_end[d]). An entry
+// is NEAR when its column lives on the same shard as its row: it stays
+// in the shard's local symmetric streams (dense-diagonal planes or the
+// local strict-lower residual). A FAR entry feeds two one-sided streams:
+// (local row, global col) on the row's shard and its mirror image
+// (owner-local col, global row) on the column's shard.
 
 static inline int64_t cfs_owner_of(int64_t x, const int64_t *r_end,
                                    int64_t ndev) {
@@ -734,30 +151,28 @@ static inline int64_t cfs_owner_of(int64_t x, const int64_t *r_end,
 }
 
 // Pass A: per-shard near-offset histograms (off_cnt, for the dense-
-// diagonal union selection), near/far/mirror counts, and the cross-
-// device entry count (far_nnz / 2). Rows are CSR-ordered, so the row
-// owner advances monotonically. near = same NB-row output block (shard
-// bounds are NB-aligned, so near entries never cross devices).
+// diagonal union selection), near/far/mirror counts. Returns the
+// cross-shard entry count. Rows are CSR-ordered, so the row owner
+// advances monotonically.
 int64_t cfs_dist_sym_count(const int64_t *indptr, const int32_t *indices,
                            int64_t n, int64_t ndev, const int64_t *r_end,
-                           int64_t NB, int64_t shard_rows,
-                           int64_t *off_cnt, int64_t *cnt_near,
-                           int64_t *cnt_far, int64_t *cnt_mirror) {
+                           int64_t shard_rows, int64_t *off_cnt,
+                           int64_t *cnt_near, int64_t *cnt_far,
+                           int64_t *cnt_mirror) {
   int64_t cross = 0;
   int64_t d_own = 0;
   for (int64_t i = 0; i < n; ++i) {
     while (d_own < ndev - 1 && i >= r_end[d_own]) ++d_own;
-    const int64_t blk_i = i / NB;
     for (int64_t k = indptr[i]; k < indptr[i + 1]; ++k) {
       const int64_t c = (int64_t)indices[k];
-      if (c / NB == blk_i) {
+      const int64_t co = cfs_owner_of(c, r_end, ndev);
+      if (co == d_own) {
         ++cnt_near[d_own];
         ++off_cnt[d_own * shard_rows + (i - c)];
       } else {
         ++cnt_far[d_own];
-        const int64_t co = cfs_owner_of(c, r_end, ndev);
         ++cnt_mirror[co];
-        if (co != d_own) ++cross;
+        ++cross;
       }
     }
   }
@@ -765,18 +180,16 @@ int64_t cfs_dist_sym_count(const int64_t *indptr, const int32_t *indices,
 }
 
 // Pass B: route every entry. Near entries on selected dense diagonals
-// (dmap[off] >= 0) scatter straight into the stacked (ndev, R_loc, Dk,
-// 8, 128) value planes (mirrored into plane Du + j by column when
-// mirror_planes); other near entries append local-coordinate residual
-// triples; far entries append (local row, global col) own triples AND
+// (dmap[off] >= 0) scatter into the stacked (ndev, D, shard_rows) value
+// planes; other near entries append local-coordinate residual triples;
+// far entries append (local row, global col) own triples AND
 // (owner-local col, global row) mirror triples bucketed by column
 // owner. Cursor bases come from pass A's exclusive prefix sums.
 void cfs_dist_sym_fill(
     const int64_t *indptr, const int32_t *indices, const char *data,
     int64_t es, int64_t n, int64_t ndev, const int64_t *r_start,
-    const int64_t *r_end, int64_t NB, int64_t shard_rows,
-    const int32_t *dmap, int64_t dmap_len, int64_t Dk, int64_t Du,
-    int64_t mirror_planes, int64_t R_loc, const int64_t *near_base,
+    const int64_t *r_end, int64_t shard_rows, const int32_t *dmap,
+    int64_t dmap_len, int64_t D, const int64_t *near_base,
     const int64_t *far_base, const int64_t *mir_base, int32_t *near_r,
     int32_t *near_c, char *near_v, int32_t *far_r, int32_t *far_c,
     char *far_v, int32_t *mir_r, int32_t *mir_c, char *mir_v,
@@ -791,25 +204,15 @@ void cfs_dist_sym_fill(
   for (int64_t i = 0; i < n; ++i) {
     while (d_own < ndev - 1 && i >= r_end[d_own]) ++d_own;
     const int64_t r0 = r_start[d_own];
-    const int64_t blk_i = i / NB;
     for (int64_t k = indptr[i]; k < indptr[i + 1]; ++k) {
       const int64_t c = (int64_t)indices[k];
-      if (c / NB == blk_i) {
+      const int64_t co = cfs_owner_of(c, r_end, ndev);
+      if (co == d_own) {
         const int64_t off = i - c;
         const int32_t j = off < dmap_len ? dmap[off] : -1;
         if (j >= 0 && dia_vals) {
-          const int64_t lr = i - r0;
-          const int64_t slot =
-              ((d_own * R_loc + (lr >> 10)) * Dk + j) * 1024 |
-              (lr & 1023);
+          const int64_t slot = (d_own * D + j) * shard_rows + (i - r0);
           memcpy(dia_vals + slot * es, data + k * es, es);
-          if (mirror_planes) {
-            const int64_t lc = c - r0;
-            const int64_t slot2 =
-                ((d_own * R_loc + (lc >> 10)) * Dk + Du + j) * 1024 |
-                (lc & 1023);
-            memcpy(dia_vals + slot2 * es, data + k * es, es);
-          }
         } else {
           const int64_t p = cur_n[d_own]++;
           near_r[p] = (int32_t)(i - r0);
@@ -821,7 +224,6 @@ void cfs_dist_sym_fill(
         far_r[p] = (int32_t)(i - r0);
         far_c[p] = (int32_t)c;
         memcpy(far_v + p * es, data + k * es, es);
-        const int64_t co = cfs_owner_of(c, r_end, ndev);
         p = cur_m[co]++;
         mir_r[p] = (int32_t)(c - r_start[co]);
         mir_c[p] = (int32_t)i;
@@ -866,20 +268,14 @@ void cfs_sym_adjacency(const int64_t *indptr, const int32_t *indices,
 }
 
 // ---------------------------------------------------------------------------
-// SDIA value fill (formats/sdia.py extract_sdia).
-//
-// Scatters val[i] into the (R, D, 8, 128) diagonal-plane layout at row
-// g[i], plane j[i] + joff: flat slot ((g>>10)*D + j + joff)*1024 +
-// (g & 1023). One pass replaces NumPy's 4-array multi-index scatter
-// (several full-size index temporaries — minutes at Queen scale).
-void cfs_assemble_sdia(const int64_t *g, const int32_t *j, int64_t joff,
-                       int64_t n, int64_t D, const char *val, int64_t es,
+// SDIA value fill (formats/sdia.py extract_sdia): val[i] lands in plane
+// j[i] at row g[i] of the (D, n) layout. One pass replaces NumPy's
+// fancy-index scatter and its full-size index temporaries.
+void cfs_assemble_sdia(const int64_t *g, const int32_t *j, int64_t m,
+                       int64_t n, const char *val, int64_t es,
                        char *vals) {
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t slot =
-        (((g[i] >> 10) * D + j[i] + joff) << 10) | (g[i] & 1023);
-    memcpy(vals + slot * es, val + i * es, es);
-  }
+  for (int64_t i = 0; i < m; ++i)
+    memcpy(vals + ((int64_t)j[i] * n + g[i]) * es, val + i * es, es);
 }
 
 }  // extern "C"

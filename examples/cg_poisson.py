@@ -1,4 +1,4 @@
-"""End-to-end example: solve a 2-D Poisson problem with CG on TPU.
+"""End-to-end example: solve a 2-D Poisson problem with CG on the device.
 
 Builds the standard 5-point Laplacian (SPD, symmetric storage), tunes it
 into the dense-diagonal stream, and runs Conjugate Gradient entirely
@@ -10,8 +10,8 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 
-from cfs_spmv_tpu import COO, CSR, Format, SparseMatrix, SpDMV, Tuning
-from cfs_spmv_tpu.models.solvers import cg
+from cfs_spmv import COO, CSR, Format, SparseMatrix, SpDMV, Tuning
+from cfs_spmv.models.solvers import cg
 
 
 def laplacian_2d(g: int) -> CSR:

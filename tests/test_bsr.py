@@ -3,10 +3,10 @@ index-traffic saving the format exists for (BASELINE config 3)."""
 
 import numpy as np
 
-from cfs_spmv_tpu import COO, CSR, Format
-from cfs_spmv_tpu.formats.bsr import BSR, detect_block_size
-from cfs_spmv_tpu.tuning.tune import tune
-from cfs_spmv_tpu.utils.platform import allclose_spmv
+from cfs_spmv import COO, CSR, Format
+from cfs_spmv.formats.bsr import BSR, detect_block_size
+from cfs_spmv.tuning.tune import tune
+from cfs_spmv.utils.platform import allclose_spmv
 
 from conftest import random_x
 

@@ -7,16 +7,16 @@ generated .mtx fixture, covering the reference's integer format codes.
 import numpy as np
 import pytest
 
-from cfs_spmv_tpu.cli import parse_format
-from cfs_spmv_tpu.cli.bench_spmv_mmf import main as run_bench_cli
-from cfs_spmv_tpu.cli.test_spmv_mmf import main as run_test_cli
-from cfs_spmv_tpu.io.mmf import write_mmf
-from cfs_spmv_tpu.utils.platform import Format
+from cfs_spmv.cli import parse_format
+from cfs_spmv.cli.bench_spmv_mmf import main as run_bench_cli
+from cfs_spmv.cli.test_spmv_mmf import main as run_test_cli
+from cfs_spmv.io.mmf import write_mmf
+from cfs_spmv.utils.platform import Format
 
 
 @pytest.fixture(scope="module")
 def mtx_path(tmp_path_factory):
-    from cfs_spmv_tpu.formats.coo import COO
+    from cfs_spmv.formats.coo import COO
 
     coo = COO.random(
         500, 500, 4.0, symmetric=True, bandwidth=60, seed=11,
@@ -66,7 +66,7 @@ def test_cli_bench_spmm(mtx_path, capsys):
 
 
 def test_cli_bench_dist(mtx_path, capsys):
-    from cfs_spmv_tpu.cli.bench_dist import main as run_dist_cli
+    from cfs_spmv.cli.bench_dist import main as run_dist_cli
 
     assert run_dist_cli([mtx_path, "4", "--devices", "2"]) == 0
     out = capsys.readouterr().out
@@ -75,7 +75,7 @@ def test_cli_bench_dist(mtx_path, capsys):
 
 
 def test_cli_bench_dist_weak(mtx_path, capsys):
-    from cfs_spmv_tpu.cli.bench_dist import main as run_dist_cli
+    from cfs_spmv.cli.bench_dist import main as run_dist_cli
 
     assert run_dist_cli([mtx_path, "4", "--devices", "2", "--weak"]) == 0
     assert "efficiency:" in capsys.readouterr().out
@@ -89,14 +89,19 @@ def test_cli_bench_rivals(mtx_path, rival, capsys):
     assert ("BCOO" if rival == "3" else "DENSE") in out
 
 
-def test_cli_bench_dist_gen(capsys):
+def test_cli_bench_dist_gen(capsys, tmp_path):
     """--gen runs a generated BASELINE-structure proxy (no .mtx file)
-    and --model prints both weak and strong efficiency rows."""
-    from cfs_spmv_tpu.cli.bench_dist import main as run_dist_cli
+    and reports one row per device count, plus a JSON record naming
+    the device."""
+    import json
 
+    from cfs_spmv.cli.bench_dist import main as run_dist_cli
+
+    jf = str(tmp_path / "dist.jsonl")
     assert run_dist_cli(
-        ["--gen", "band_small", "2", "--devices", "2", "--model"]
+        ["--gen", "band_small", "2", "--devices", "2", "--json", jf]
     ) == 0
+    rec = json.loads(open(jf).read().splitlines()[-1])
     out = capsys.readouterr().out
     assert "devices: 1" in out and "devices: 2" in out
-    assert "model weak comm=" in out and "model strong comm=" in out
+    assert rec["ndev"] == [1, 2] and rec["device"]["platform"] == "cpu"

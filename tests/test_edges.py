@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from cfs_spmv_tpu import COO, CSR, Format, SparseMatrix, SpDMV, Tuning
-from cfs_spmv_tpu.tuning.tune import tune
-from cfs_spmv_tpu.utils.platform import allclose_spmv
+from cfs_spmv import COO, CSR, Format, SparseMatrix, SpDMV, Tuning
+from cfs_spmv.tuning.tune import tune
+from cfs_spmv.utils.platform import allclose_spmv
 
 from conftest import random_x
 

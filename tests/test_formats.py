@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from cfs_spmv_tpu.formats.coo import COO
-from cfs_spmv_tpu.formats.csr import CSR
+from cfs_spmv.formats.coo import COO
+from cfs_spmv.formats.csr import CSR
 
 
 def test_coo_canonicalize_dedups():
@@ -70,8 +70,8 @@ def test_spmv_host_oracle_symmetric():
 def test_csr_validate():
     import pytest
 
-    from cfs_spmv_tpu.formats.coo import COO
-    from cfs_spmv_tpu.formats.csr import CSR
+    from cfs_spmv.formats.coo import COO
+    from cfs_spmv.formats.csr import CSR
 
     good = CSR.from_coo(COO.random(100, 100, 3.0, seed=0))
     assert good.validate() is good
@@ -104,8 +104,8 @@ def test_scipy_interop():
     scipy = pytest.importorskip("scipy")
     import scipy.sparse as sp
 
-    from cfs_spmv_tpu import Format, SparseMatrix
-    from cfs_spmv_tpu.formats.csr import CSR
+    from cfs_spmv import Format, SparseMatrix
+    from cfs_spmv.formats.csr import CSR
     from conftest import random_x
 
     rng = np.random.default_rng(0)
@@ -128,44 +128,3 @@ def test_scipy_interop():
 
     with pytest.raises(ValueError):
         CSR.from_scipy(d, symmetric=True)  # not symmetric
-
-
-def test_paired_routing_gate(monkeypatch):
-    """The round-5 cost gate: loose paired packs route to the mirrored
-    one-sided stream, dense packs stay paired, and CFS_PAIRED=force
-    restores unconditional pairing (docs/KERNEL_NOTES_R5.md)."""
-    import numpy as np
-
-    from cfs_spmv_tpu.formats.sbell import build_sbell_plan
-    from cfs_spmv_tpu.utils.proxies import cant_proxy, near_band_paired
-
-    loose = near_band_paired(n=8000, n_diags=48, max_off=400, seed=3)
-    p = build_sbell_plan(loose)
-    assert p.nnz_paired == 0 and p.far is not None and p.far.nnz > 0
-
-    monkeypatch.setenv("CFS_PAIRED", "force")
-    pf = build_sbell_plan(loose)
-    assert pf.nnz_paired > 0
-    monkeypatch.delenv("CFS_PAIRED")
-
-    dense = cant_proxy(n=8192, half_bw=24)
-    pd = build_sbell_plan(dense, dia=False)
-    assert pd.nnz_paired > 0, "dense paired packs must stay paired"
-
-    # both routes agree with the host oracle through the apply layer
-    from cfs_spmv_tpu.ops import spmv as ops
-    from cfs_spmv_tpu.utils.platform import allclose_spmv
-
-    x = np.random.default_rng(0).uniform(1, 2, loose.ncols).astype(
-        np.float32
-    )
-    xd = x.astype(np.float64)
-    ref = loose.spmv_host(xd)
-    scale = loose.spmv_host(xd, absolute=True)
-    for plan in (p, pf):
-        dev = ops.sym_to_device(plan)
-        y = np.asarray(ops.sbell_apply(dev, x))
-        assert allclose_spmv(
-            y, ref, np.float32,
-            nnz_per_row=plan.nnz_full / plan.nrows, scale=scale,
-        )

@@ -1,29 +1,25 @@
-"""fp64-on-TPU ELL+COO path (scatter-free hot loop).
+"""The ELL + COO-tail residual and the native fp64 path.
 
-Pallas has no 64-bit lanes, so fp64 routes through pure XLA
-(``tuning/tune._tune_fp64_xla``). The original COO scatter-add
-formulation measured 0.009 Gnnz/s on v5e; the ELL slab turns the
-regular part into gather/multiply/row-sum. The reference runs all
-kernels in double under ``--enable-dp`` (``configure.ac``), so this is
-its last strictly-won capability — these tests pin the split and the
-appliers on the CPU backend (XLA fp64 semantics are identical there).
+Every tuned matrix runs its indexed part as an ELL slab plus a COO tail
+(``formats/ell.py``, ``ops/spmv.ell_apply``); fp64 runs the same
+streams in float64 (``jax_enable_x64``). The reference runs all kernels
+in double under ``--enable-dp`` (``configure.ac``); these tests pin the
+split and the appliers on the CPU backend.
 """
 
+import jax.numpy as jnp
 import numpy as np
 
-from cfs_spmv_tpu.formats.coo import COO
-from cfs_spmv_tpu.formats.csr import CSR
-from cfs_spmv_tpu.ops.xla_ref import (
-    build_ell_hyb,
-    ell_spmm_xla,
-    ell_spmv_xla,
-)
-from cfs_spmv_tpu.utils.platform import Format
+from cfs_spmv.formats.coo import COO
+from cfs_spmv.formats.csr import CSR
+from cfs_spmv.formats.ell import build_ell, choose_width
+from cfs_spmv.ops.spmv import ell_apply, ell_to_device
+from cfs_spmv.utils.platform import Format
 
 
 def _coo(n=700, per_row=5, dense_rows=(3, 77), dense_len=200, seed=0):
     """Skewed: background rows of ~5 nnz plus two dense rows that must
-    overflow the 4x-mean ELL width into the COO remainder."""
+    overflow the chosen ELL width into the COO tail."""
     rng = np.random.default_rng(seed)
     row = np.repeat(np.arange(n, dtype=np.int64), per_row)
     col = rng.integers(0, n, n * per_row)
@@ -35,49 +31,51 @@ def _coo(n=700, per_row=5, dense_rows=(3, 77), dense_len=200, seed=0):
                val).canonicalize()
 
 
+def _ell(coo):
+    return build_ell(coo.row, coo.col, coo.val, coo.nrows, coo.ncols,
+                     dtype=np.float64)
+
+
 def test_build_ell_hyb_partition():
     coo = _coo()
     n = coo.nrows
-    ecol, evals, rr, rc, rv = build_ell_hyb(coo.row, coo.col, coo.val, n)
+    e = _ell(coo)
     counts = np.bincount(coo.row, minlength=n)
-    L = ecol.shape[1]
-    assert L < counts.max()  # the dense rows overflow
-    # every entry lands exactly once: slab nonzeros + remainder == nnz
-    assert (evals != 0).sum() + len(rv) == coo.nnz
-    # remainder rows are exactly the overflowing ones
-    assert set(np.unique(rr)) == set(np.where(counts > L)[0])
-    # slab reproduces each row's first-L entries' sum against the oracle
+    L = e.width
+    assert L == choose_width(counts) and L < counts.max()  # dense rows overflow
+    # every entry lands exactly once: slab nonzeros + tail == nnz
+    assert (e.vals != 0).sum() + len(e.tail_val) == coo.nnz
+    # tail rows are exactly the overflowing ones
+    assert set(np.unique(e.tail_row)) == set(np.where(counts > L)[0])
     x = np.random.default_rng(1).uniform(1, 2, n)
-    y = np.asarray(ell_spmv_xla(ecol, evals, x))
-    if len(rr):
-        np.add.at(y, rr, rv * x[rc])
-    ref = CSR.from_coo(coo).spmv_host(x)
-    np.testing.assert_allclose(y, ref, rtol=1e-13)
+    y = np.asarray(ell_apply(ell_to_device(e), jnp.asarray(x)))
+    np.testing.assert_allclose(y, CSR.from_coo(coo).spmv_host(x), rtol=1e-13)
 
 
 def test_ell_spmm_matches_spmv():
     coo = _coo(seed=2)
-    n = coo.nrows
-    ecol, evals, rr, rc, rv = build_ell_hyb(coo.row, coo.col, coo.val, n)
-    X = np.random.default_rng(3).uniform(1, 2, (n, 3))
-    Y = np.asarray(ell_spmm_xla(ecol, evals, X))
+    s = ell_to_device(_ell(coo))
+    X = np.random.default_rng(3).uniform(1, 2, (coo.nrows, 3))
+    Y = np.asarray(ell_apply(s, jnp.asarray(X)))
     for b in range(3):
         np.testing.assert_allclose(
-            Y[:, b], np.asarray(ell_spmv_xla(ecol, evals, X[:, b])),
+            Y[:, b], np.asarray(ell_apply(s, jnp.asarray(X[:, b]))),
             rtol=1e-13,
         )
 
 
 def test_tune_fp64_xla_applier():
-    """Drive _tune_fp64_xla directly (the use_interpret gate skips it on
-    CPU backends; XLA CPU runs the same HLO in native f64)."""
-    from cfs_spmv_tpu.tuning.tune import _tune_fp64_xla
+    """fp64 tune on a skewed general matrix: float64 streams end to
+    end."""
+    from cfs_spmv.tuning.tune import tune
 
     coo = _coo(seed=4)
     csr = CSR.from_coo(coo)
-    tuned = _tune_fp64_xla(csr, Format.CSR)
+    tuned = tune(csr, fmt=Format.CSR, dtype=np.float64)
+    assert tuned.plan.resid.vals.dtype == np.float64
     x = np.random.default_rng(5).uniform(1, 2, csr.ncols)
     y = np.asarray(tuned.matvec(x))
+    assert y.dtype == np.float64
     np.testing.assert_allclose(y, csr.spmv_host(x), rtol=1e-13)
     X = np.random.default_rng(6).uniform(1, 2, (csr.ncols, 2))
     Y = np.asarray(tuned.matmat(X))
@@ -85,9 +83,9 @@ def test_tune_fp64_xla_applier():
 
 
 def test_tune_fp64_xla_symmetric_no_remainder():
-    """Banded symmetric (uniform degree): remainder must be empty and
-    the mirrored expansion exact."""
-    from cfs_spmv_tpu.tuning.tune import _tune_fp64_xla
+    """Banded symmetric (uniform degree): the diagonals land on the
+    planes, no residual tail remains, and fp64 matches exactly."""
+    from cfs_spmv.tuning.tune import tune
 
     rng = np.random.default_rng(7)
     n, hb = 512, 6
@@ -99,8 +97,11 @@ def test_tune_fp64_xla_symmetric_no_remainder():
     c = np.concatenate([cols[keep], np.arange(n)])
     v = rng.uniform(0.5, 1.5, len(r))
     csr = CSR.from_coo(COO(n, n, r, c, v, symmetric=True).canonicalize())
-    tuned = _tune_fp64_xla(csr, Format.SSS)
-    assert tuned.operands["row"] is None  # uniform rows: pure ELL
+    tuned = tune(csr, fmt=Format.SSS, dtype=np.float64)
+    assert tuned.plan.dia is not None and tuned.plan.dia.offsets == tuple(
+        range(1, hb + 1)
+    )
+    assert tuned.operands.resid is None  # uniform band: planes only
     x = rng.uniform(1, 2, n)
     np.testing.assert_allclose(
         np.asarray(tuned.matvec(x)), csr.spmv_host(x), rtol=1e-13

@@ -5,9 +5,9 @@ scaled out — SURVEY §4 calls for property tests it lacks)."""
 import numpy as np
 import pytest
 
-from cfs_spmv_tpu import COO, CSR, Format
-from cfs_spmv_tpu.tuning.tune import tune
-from cfs_spmv_tpu.utils.platform import allclose_spmv
+from cfs_spmv import COO, CSR, Format
+from cfs_spmv.tuning.tune import tune
+from cfs_spmv.utils.platform import allclose_spmv
 
 from conftest import random_x
 

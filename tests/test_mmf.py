@@ -7,7 +7,7 @@ import io
 import numpy as np
 import pytest
 
-from cfs_spmv_tpu.io.mmf import PATTERN_DEFAULT_VALUE, read_mmf, write_mmf
+from cfs_spmv.io.mmf import PATTERN_DEFAULT_VALUE, read_mmf, write_mmf
 
 
 def _file(text: str):
@@ -164,8 +164,8 @@ def test_inline_comment_paths_agree(monkeypatch):
     tolerated bodies."""
     import io
 
-    from cfs_spmv_tpu import native as _nat
-    from cfs_spmv_tpu.io import mmf as mmf_mod
+    from cfs_spmv import native as _nat
+    from cfs_spmv.io import mmf as mmf_mod
 
     text = (
         "%%MatrixMarket matrix coordinate real general\n"

@@ -9,14 +9,12 @@ import os
 import numpy as np
 import pytest
 
-from cfs_spmv_tpu.formats.bell2 import build_bell2_plan
-from cfs_spmv_tpu.formats.coo import COO
-from cfs_spmv_tpu.formats.csr import CSR
-from cfs_spmv_tpu.formats.sbell import build_sbell_plan
-from cfs_spmv_tpu.io import plancache
-from cfs_spmv_tpu.ops import spmv as ops
-from cfs_spmv_tpu.tuning.tune import tune
-from cfs_spmv_tpu.utils.platform import Format, allclose_spmv
+from cfs_spmv.formats.coo import COO
+from cfs_spmv.formats.csr import CSR
+from cfs_spmv.formats.plan import build_general_plan, build_symmetric_plan
+from cfs_spmv.io import plancache
+from cfs_spmv.tuning.tune import tune
+from cfs_spmv.utils.platform import Format, allclose_spmv
 
 from conftest import random_x
 
@@ -41,7 +39,7 @@ def sym_csr(small_sym_coo):
 
 
 def test_roundtrip_sbell(tmp_path, sym_csr):
-    plan = build_sbell_plan(sym_csr, dtype=np.float32, dia_min_count=8)
+    plan = build_symmetric_plan(sym_csr, dtype=np.float32)
     p = tmp_path / "plan.npz"
     plancache.save_plan(p, plan)
     _plans_equal(plan, plancache.load_plan(p))
@@ -49,14 +47,14 @@ def test_roundtrip_sbell(tmp_path, sym_csr):
 
 def test_roundtrip_bell2(tmp_path):
     coo = COO.random(700, 650, 5.0, bandwidth=200, seed=4)
-    plan = build_bell2_plan(CSR.from_coo(coo))
+    plan = build_general_plan(CSR.from_coo(coo))
     p = tmp_path / "plan.npz"
     plancache.save_plan(p, plan)
     _plans_equal(plan, plancache.load_plan(p))
 
 
 def test_version_invalidation(tmp_path, sym_csr, monkeypatch):
-    plan = build_sbell_plan(sym_csr, dtype=np.float32)
+    plan = build_symmetric_plan(sym_csr, dtype=np.float32)
     p = tmp_path / "plan.npz"
     plancache.save_plan(p, plan)
     monkeypatch.setattr(plancache, "PLAN_VERSION", plancache.PLAN_VERSION + 1)
@@ -65,15 +63,15 @@ def test_version_invalidation(tmp_path, sym_csr, monkeypatch):
 
 
 def test_cache_key_sensitivity(sym_csr):
-    k1 = plancache.cache_key(sym_csr, np.float32, fmt="sbell")
-    k2 = plancache.cache_key(sym_csr, np.float64, fmt="sbell")
-    k3 = plancache.cache_key(sym_csr, np.float32, fmt="bell2")
+    k1 = plancache.cache_key(sym_csr, np.float32, fmt="sym")
+    k2 = plancache.cache_key(sym_csr, np.float64, fmt="sym")
+    k3 = plancache.cache_key(sym_csr, np.float32, fmt="general")
     assert len({k1, k2, k3}) == 3
     bumped = CSR(
         sym_csr.nrows, sym_csr.ncols, sym_csr.indptr, sym_csr.indices,
         sym_csr.data * 2, sym_csr.symmetric,
     )
-    assert plancache.cache_key(bumped, np.float32, fmt="sbell") != k1
+    assert plancache.cache_key(bumped, np.float32, fmt="sym") != k1
 
 
 def test_tune_uses_cache(tmp_path, sym_csr):

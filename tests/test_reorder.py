@@ -4,11 +4,11 @@ partitioner, ``csr_matrix.tpp:543-639``)."""
 
 import numpy as np
 
-from cfs_spmv_tpu.formats.coo import COO
-from cfs_spmv_tpu.formats.csr import CSR
-from cfs_spmv_tpu.tuning.reorder import choose_reorder, rcm_permutation
-from cfs_spmv_tpu.tuning.tune import tune
-from cfs_spmv_tpu.utils.platform import Format, allclose_spmv
+from cfs_spmv.formats.coo import COO
+from cfs_spmv.formats.csr import CSR
+from cfs_spmv.tuning.reorder import choose_reorder, rcm_permutation
+from cfs_spmv.tuning.tune import tune
+from cfs_spmv.utils.platform import Format, allclose_spmv
 
 from conftest import random_x
 

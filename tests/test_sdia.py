@@ -1,4 +1,4 @@
-"""SDIA dense-diagonal stream: extraction + kernel correctness.
+"""SDIA dense-diagonal stream: extraction + applier correctness.
 
 Differential oracle pattern of the reference test harness
 (``test_spmv_mmf.cpp:85-89``): tuned path vs fp64 host CSR kernel.
@@ -6,12 +6,12 @@ Differential oracle pattern of the reference test harness
 
 import numpy as np
 
-from cfs_spmv_tpu.formats.coo import COO
-from cfs_spmv_tpu.formats.csr import CSR
-from cfs_spmv_tpu.formats.sbell import build_sbell_plan
-from cfs_spmv_tpu.formats.sdia import extract_sdia
-from cfs_spmv_tpu.ops import spmv as ops
-from cfs_spmv_tpu.utils.platform import allclose_spmv
+from cfs_spmv.formats.coo import COO
+from cfs_spmv.formats.csr import CSR
+from cfs_spmv.formats.plan import build_symmetric_plan
+from cfs_spmv.formats.sdia import extract_sdia
+from cfs_spmv.ops import spmv as ops
+from cfs_spmv.utils.platform import allclose_spmv
 
 from conftest import random_x
 
@@ -37,13 +37,11 @@ def banded_sym(n, half_bw, seed=0, holes=0.0, dtype=np.float64):
     )
 
 
-def _check(csr, *, dia_min_count=8, dia_fill=0.3, dtype=np.float32):
-    plan = build_sbell_plan(
-        csr, dtype=dtype, dia_min_count=dia_min_count, dia_fill=dia_fill
-    )
-    dev = ops.sym_to_device(plan)
+def _check(csr, *, dtype=np.float32):
+    plan = build_symmetric_plan(csr, dtype=dtype)
+    dev = ops.to_device(plan)
     x = random_x(csr.nrows, dtype)
-    y = np.asarray(ops.sbell_apply(dev, x))
+    y = np.asarray(ops.matrix_apply(dev, x))
     xd = x.astype(np.float64)
     ref = csr.spmv_host(xd)
     assert allclose_spmv(
@@ -66,13 +64,12 @@ def test_extract_sdia_selects_dense_diagonals():
     assert plan.offsets == tuple(range(1, 13))
     assert plan.nnz == lower.nnz
     assert not resid.any()
-    # value placement round-trip
+    # value placement round-trip: plane j holds diagonal offsets[j] at
+    # the diagonal's row index
+    assert plan.vals.shape == (12, csr.nrows)
     g = 1234
     d = 5
-    got = plan.vals[
-        g // 1024, plan.offsets.index(d), (g // 128) % 8, g % 128
-    ]
-    want = csr.to_coo()
+    got = plan.vals[plan.offsets.index(d), g]
     m = (np.repeat(np.arange(csr.nrows), np.diff(csr.indptr)) == g) & (
         csr.indices == g - d
     )
@@ -83,18 +80,17 @@ def test_pure_banded_uses_dia_only():
     csr = banded_sym(3000, 10, seed=1)
     plan = _check(csr)
     assert plan.dia is not None
-    assert plan.nnz_paired == 0
-    assert plan.far is None
+    assert plan.resid is None
 
 
 def test_banded_with_holes_splits_streams():
     csr = banded_sym(3000, 10, seed=2, holes=0.45)
-    plan = _check(csr, dia_fill=0.5)
-    assert plan.dia is not None or plan.nnz_paired > 0
+    plan = _check(csr)
+    assert plan.dia is not None  # fill 0.55 clears SDIA_FILL
 
 
 def test_large_offsets_cross_sublane_groups():
-    """Stencil-like: offsets spanning multiple 128-row sublane shifts."""
+    """Stencil-like: short and long offsets in one plane set."""
     n = 4000
     rng = np.random.default_rng(9)
     parts = []
@@ -118,7 +114,8 @@ def test_large_offsets_cross_sublane_groups():
 
 
 def test_mixed_dia_paired_far():
-    """Dense diagonals + scattered residual exercises all three streams."""
+    """Dense diagonals + scattered residual: diagonal, planes and the
+    ELL residual all active."""
     n = 2500
     base = banded_sym(n, 6, seed=5).to_coo()
     scat = COO.random(n, n, 2.0, symmetric=True, seed=6, dtype=np.float64)
@@ -132,18 +129,18 @@ def test_mixed_dia_paired_far():
     csr = CSR.from_coo(coo)
     plan = _check(csr)
     assert plan.dia is not None
-    assert plan.far is not None
+    assert plan.resid is not None
 
 
 def test_sdia_spmm():
     csr = banded_sym(2000, 9, seed=7)
-    plan = build_sbell_plan(csr, dtype=np.float32, dia_min_count=8)
+    plan = build_symmetric_plan(csr, dtype=np.float32)
     assert plan.dia is not None
-    dev = ops.sym_to_device(plan)
+    dev = ops.to_device(plan)
     X = np.random.default_rng(8).uniform(1, 2, (csr.nrows, 4)).astype(
         np.float32
     )
-    Y = np.asarray(ops.sbell_apply_mm(dev, X))
+    Y = np.asarray(ops.matrix_apply(dev, X))
     for b in range(4):
         ref = csr.spmv_host(X[:, b].astype(np.float64))
         assert allclose_spmv(

@@ -1,16 +1,15 @@
-"""Signed-offset (general / mirrored) SDIA stream tests.
+"""Signed-offset (general) SDIA stream tests.
 
-Covers the blocked-y one-sided diagonal kernel
-(``ops/sdia_kernel.sdia_gen_tiles``): the general-matrix diagonal peel
-and the mirrored mode that removes the symmetric whole-y-in-VMEM
-ceiling (VERDICT r1 items 5 and — for the general path — 1)."""
+Covers the one-sided diagonal applier (``ops/spmv.dia_apply`` with
+``sym=False``): the general-matrix diagonal peel, its acceptance gate,
+and agreement with the symmetric two-sided form."""
 
 import numpy as np
 import pytest
 
-from cfs_spmv_tpu import COO, CSR, Format, SparseMatrix, SpDMV, Tuning
-from cfs_spmv_tpu.utils.platform import allclose_spmv
-from tests.conftest import random_x
+from cfs_spmv import COO, CSR, Format, SparseMatrix, SpDMV, Tuning
+from cfs_spmv.utils.platform import allclose_spmv
+from conftest import random_x
 
 
 def _banded_general(n=3000, offs=(-700, -3, -1, 2, 128, 601), seed=0,
@@ -42,17 +41,17 @@ def _banded_general(n=3000, offs=(-700, -3, -1, 2, 128, 601), seed=0,
 
 def test_general_dia_peel_correct():
     csr = _banded_general()
-    from cfs_spmv_tpu.formats.bell2 import build_general_plan
+    from cfs_spmv.formats.plan import build_general_plan
 
     plan = build_general_plan(csr, dtype=np.float64)
     assert plan.dia is not None
     assert any(d < 0 for d in plan.dia.offsets)  # super-diagonals peeled
     assert any(d > 0 for d in plan.dia.offsets)
-    from cfs_spmv_tpu.ops import spmv as ops
+    from cfs_spmv.ops import spmv as ops
 
     dev = ops.to_device(plan)
     x = random_x(csr.ncols, np.float64)
-    y = np.asarray(ops.bell2_apply(dev, x))
+    y = np.asarray(ops.matrix_apply(dev, x))
     ref = csr.spmv_host(x)
     assert allclose_spmv(
         y, ref, np.float64, nnz_per_row=csr.nnz / csr.nrows,
@@ -60,7 +59,7 @@ def test_general_dia_peel_correct():
     )
     # SpMM path
     X = np.random.default_rng(3).uniform(1, 2, (csr.ncols, 3))
-    Y = np.asarray(ops.bell2_apply_mm(dev, X))
+    Y = np.asarray(ops.matrix_apply(dev, X))
     for b in range(3):
         assert allclose_spmv(
             Y[:, b], csr.spmv_host(X[:, b]), np.float64,
@@ -85,43 +84,11 @@ def test_general_tune_uses_dia():
     )
 
 
-def test_gen_grid_segmentation_matches(monkeypatch):
-    """The grid segmentation (x-slice + halo per call, used past the
-    ~64MB whole-x VMEM cap) must produce identical results to the
-    single-call path."""
-    import cfs_spmv_tpu.ops.sdia_kernel as sk
-
-    csr = _banded_general(n=4000)
-    from cfs_spmv_tpu.formats.bell2 import build_general_plan
-    from cfs_spmv_tpu.ops import spmv as ops
-
-    plan = build_general_plan(csr, dtype=np.float64)
-    assert plan.dia is not None
-    dev = ops.to_device(plan)
-    x = random_x(csr.ncols, np.float64)
-    y1 = np.asarray(ops.bell2_apply(dev, x))
-    monkeypatch.setattr(sk, "_GEN_SEG_ROWS", 1024)  # force many segments
-    sk.sdia_gen_tiles._clear_cache()
-    sk.sdia_gen_tiles_mm._clear_cache()
-    y2 = np.asarray(ops.bell2_apply(dev, x))
-    np.testing.assert_allclose(y2, y1, rtol=1e-12, atol=1e-12)
-    X = np.random.default_rng(5).uniform(1, 2, (csr.ncols, 2))
-    Y = np.asarray(ops.bell2_apply_mm(dev, X))
-    for b in range(2):
-        assert allclose_spmv(
-            Y[:, b], csr.spmv_host(X[:, b]), np.float64,
-            nnz_per_row=csr.nnz / csr.nrows,
-            scale=csr.spmv_host(X[:, b], absolute=True),
-        )
-    monkeypatch.undo()
-    sk.sdia_gen_tiles._clear_cache()
-    sk.sdia_gen_tiles_mm._clear_cache()
-
-
 @pytest.mark.parametrize("mirror", [False, True])
 def test_sym_mirror_matches(mirror):
-    """Mirrored (blocked-y) symmetric diagonals must equal the resident
-    sym kernel's result and the host oracle."""
+    """The symmetric two-sided planes (one value per pair) and the
+    mirrored form (the expanded matrix's signed ±d planes, one-sided)
+    must both equal the host oracle."""
     n, half_bw = 4096, 5
     rng = np.random.default_rng(11)
     rows = np.repeat(np.arange(n, dtype=np.int64), half_bw)
@@ -136,24 +103,30 @@ def test_sym_mirror_matches(mirror):
     csr = CSR.from_coo(
         COO(n, n, r, c, v, symmetric=True).canonicalize()
     )
-    from cfs_spmv_tpu.formats.sbell import build_sbell_plan
-    from cfs_spmv_tpu.ops import spmv as ops
-
-    plan = build_sbell_plan(
-        csr, dtype=np.float64, dia_min_count=8, dia_mirror=mirror
+    from cfs_spmv.formats.plan import (
+        build_general_plan,
+        build_symmetric_plan,
     )
+    from cfs_spmv.ops import spmv as ops
+
+    if mirror:
+        plan = build_general_plan(
+            CSR.from_coo(csr.to_coo().expand_symmetric()), dtype=np.float64
+        )
+    else:
+        plan = build_symmetric_plan(csr, dtype=np.float64)
     assert plan.dia is not None
     assert any(d < 0 for d in plan.dia.offsets) == mirror
-    dev = ops.sym_to_device(plan)
+    dev = ops.to_device(plan)
     x = random_x(n, np.float64)
-    y = np.asarray(ops.sbell_apply(dev, x))
+    y = np.asarray(ops.matrix_apply(dev, x))
     ref = csr.spmv_host(x)
     assert allclose_spmv(
         y, ref, np.float64, nnz_per_row=2 * half_bw + 1,
         scale=csr.spmv_host(x, absolute=True),
     )
     X = np.random.default_rng(4).uniform(1, 2, (n, 2))
-    Y = np.asarray(ops.sbell_apply_mm(dev, X))
+    Y = np.asarray(ops.matrix_apply(dev, X))
     for b in range(2):
         assert allclose_spmv(
             Y[:, b], csr.spmv_host(X[:, b]), np.float64,
@@ -164,12 +137,12 @@ def test_sym_mirror_matches(mirror):
 
 def test_thin_peel_rejected():
     """A general matrix whose only dense diagonal carries ~2% of nnz
-    must NOT peel: the blocked-y SDIA kernel scans all of x/y per apply
-    (15.5 us standalone at 90k rows on v5e) while the folded-back main
-    diagonal costs the one-sided stream ~its chunk share (~0.8 us).
-    The gate is ``SDIA_PEEL_MIN_FRAC`` in ``build_general_plan``."""
-    from cfs_spmv_tpu.formats.bell2 import build_general_plan
-    from cfs_spmv_tpu.ops import spmv as ops
+    must NOT peel: the diagonal pass reads all of x and y however few
+    diagonals it holds, while the folded-back main diagonal costs the
+    residual only its own slots. The gate is ``SDIA_PEEL_MIN_FRAC`` in
+    ``build_general_plan``."""
+    from cfs_spmv.formats.plan import build_general_plan
+    from cfs_spmv.ops import spmv as ops
 
     n = 3000
     rng = np.random.default_rng(3)
@@ -188,7 +161,7 @@ def test_thin_peel_rejected():
     assert plan.dia is None  # thin peel rejected by the gate
     dev = ops.to_device(plan)
     x = random_x(n, np.float64)
-    y = np.asarray(ops.bell2_apply(dev, x))
+    y = np.asarray(ops.matrix_apply(dev, x))
     ref = csr.spmv_host(x)
     assert allclose_spmv(
         y, ref, np.float64, nnz_per_row=csr.nnz / n,

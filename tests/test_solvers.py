@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cfs_spmv_tpu import COO, CSR, Format
-from cfs_spmv_tpu.models import solvers
-from cfs_spmv_tpu.tuning.tune import tune
+from cfs_spmv import COO, CSR, Format
+from cfs_spmv.models import solvers
+from cfs_spmv.tuning.tune import tune
 
 
 def spd_system(n=700, half_bw=5, seed=0):

@@ -3,16 +3,15 @@
 Replicates the reference harness pattern (``test_spmv_mmf.cpp:31-120``):
 load → tune → run the tuned kernel TWICE (catches cross-call state
 corruption) → compare element-wise against the untuned serial oracle
-under the reference tolerances. Pallas runs in interpreter mode on the
-CPU backend.
+under the reference tolerances, on the CPU backend.
 """
 
 import numpy as np
 import pytest
 
-from cfs_spmv_tpu import COO, CSR, Format, SpDMM, SpDMV, SparseMatrix, Tuning
-from cfs_spmv_tpu.utils.platform import allclose_spmv
-from tests.conftest import random_x
+from cfs_spmv import COO, CSR, Format, SpDMM, SpDMV, SparseMatrix, Tuning
+from cfs_spmv.utils.platform import allclose_spmv
+from conftest import random_x
 
 
 def _check(A: SparseMatrix, x, dtype):
@@ -73,7 +72,7 @@ def test_hyb_format(small_sym_coo):
 def test_mmf_end_to_end(tmp_path, small_sym_coo):
     """Full reference flow: write .mtx → create(sss) → tune → spmv →
     compare vs oracle (BASELINE config 1 shape)."""
-    from cfs_spmv_tpu.io.mmf import write_mmf
+    from cfs_spmv.io.mmf import write_mmf
 
     p = tmp_path / "m.mtx"
     write_mmf(
@@ -139,10 +138,10 @@ def test_bfloat16_value_storage(small_sym_coo=None):
     tolerances."""
     import jax.numpy as jnp
 
-    from cfs_spmv_tpu.formats.coo import COO
-    from cfs_spmv_tpu.formats.csr import CSR
-    from cfs_spmv_tpu.tuning.tune import tune
-    from cfs_spmv_tpu.utils.platform import Format, allclose_spmv
+    from cfs_spmv.formats.coo import COO
+    from cfs_spmv.formats.csr import CSR
+    from cfs_spmv.tuning.tune import tune
+    from cfs_spmv.utils.platform import Format, allclose_spmv
     from conftest import random_x
 
     coo = COO.random(2000, 2000, 6.0, symmetric=True, bandwidth=50,
@@ -150,7 +149,7 @@ def test_bfloat16_value_storage(small_sym_coo=None):
     csr = CSR.from_coo(coo)
     t32 = tune(csr, fmt=Format.SSS)
     tbf = tune(csr, fmt=Format.SSS, values="bfloat16")
-    assert tbf.plan.vals.dtype == jnp.bfloat16
+    assert tbf.plan.resid.vals.dtype == jnp.bfloat16
     assert tbf.stream_bytes() < t32.stream_bytes()
     x = random_x(csr.nrows, np.float32)
     y = np.asarray(tbf.matvec(x))
@@ -166,10 +165,10 @@ def test_bfloat16_value_storage(small_sym_coo=None):
 def test_bfloat16_plan_cache(tmp_path):
     import jax.numpy as jnp
 
-    from cfs_spmv_tpu.formats.coo import COO
-    from cfs_spmv_tpu.formats.csr import CSR
-    from cfs_spmv_tpu.tuning.tune import tune
-    from cfs_spmv_tpu.utils.platform import Format
+    from cfs_spmv.formats.coo import COO
+    from cfs_spmv.formats.csr import CSR
+    from cfs_spmv.tuning.tune import tune
+    from cfs_spmv.utils.platform import Format
 
     coo = COO.random(800, 800, 4.0, symmetric=True, bandwidth=40,
                      seed=22, dtype=np.float64)
@@ -177,7 +176,7 @@ def test_bfloat16_plan_cache(tmp_path):
     d = str(tmp_path)
     t1 = tune(csr, fmt=Format.SSS, values="bfloat16", cache_dir=d)
     t2 = tune(csr, fmt=Format.SSS, values="bfloat16", cache_dir=d)
-    assert t2.plan.vals.dtype == jnp.bfloat16
+    assert t2.plan.resid.vals.dtype == jnp.bfloat16
     x = np.random.default_rng(0).uniform(1, 2, csr.nrows).astype(np.float32)
     np.testing.assert_array_equal(
         np.asarray(t1.matvec(x)), np.asarray(t2.matvec(x))
@@ -188,7 +187,7 @@ def test_spdmv_retunes_on_config_change(small_sym_coo):
     """A second SpDMV on the same matrix with a different configuration
     must retune, not silently reuse the cached plan (round-4 verify
     drive: SpDMV(A, dtype=np.float64) after a float32 SpDMV fed fp64 x
-    into the float32 Pallas plan)."""
+    into the float32 plan)."""
     A = SparseMatrix.create(small_sym_coo, Format.SSS)
     x32 = random_x(A.ncols, np.float32)
     y32 = np.asarray(SpDMV(A, dtype=np.float32)(x32))
